@@ -1,6 +1,6 @@
 # Runnable image for CPU execution / dataset prep (the reference ships a
-# python:3.8-slim + bazel image, reference Dockerfile:1-15). On TPU VMs,
-# install jax[tpu] instead of jax[cpu].
+# python:3.8-slim + bazel image, reference Dockerfile:1-15). On an
+# NVIDIA GPU host, install jax[cuda12] instead of jax[cpu].
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \

@@ -1,20 +1,20 @@
-"""safer2_recommender_tpu — a TPU-native implicit-feedback recommender framework.
+"""safer2_recommender_tpu — an implicit-feedback recommender framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 riktor/safer2-recommender ("frecsys", the official SAFER2 implementation,
 arXiv:2306.05292): six implicit-feedback matrix-factorization recommenders
 (iALS, iALS++, ERM-MF, CVaR-MF, SAFER2, SAFER2++), a ranking-evaluation
 engine (Recall@k / NDCG@k / metric-CVaR), a dataset pipeline, and a CLI.
 
-Design (TPU-first, not a port):
+Design (batched device programs, not a port):
   * The reference's per-user thread-pool loops (one d x d normal-equation
     solve per user, e.g. reference ials.h:317-365) become *batched* device
     programs: ragged user histories are bucketed into padded power-of-two
-    tiles, normal equations are assembled as batched einsums on the MXU and
-    solved with batched Cholesky.
+    tiles, normal equations are assembled as batched einsums and solved
+    with batched Cholesky.
   * The reference's shared-memory Gramian reductions (ials.h:321,
     safer2.h:504-509) become full-table matmuls; on a device mesh they are
-    sharded-batch matmuls whose partial results XLA all-reduces over ICI.
+    sharded-batch matmuls whose partial results XLA all-reduces.
   * Scale-out is SPMD over a `jax.sharding.Mesh` ("data" axis = users/items
     rows); there is no separate communication backend — XLA collectives
     replace the reference's pthread mutexes (reference BUILD:46).

@@ -49,16 +49,17 @@ class Config:
     use_epanechnikov: bool = False
     use_snr: bool = False
     use_cg: bool = False
-    # History-embedding dtype for normal-equation assembly: "auto" picks
-    # bfloat16 on TPU (the Gramian einsum is the FLOP bulk at scale —
-    # ~17 PFLOP/epoch on MSD at dim 512 — and bf16 runs the MXU at full
-    # rate with f32 accumulation), float32 elsewhere.
-    compute_dtype: str = "auto"   # "auto" | "f32" | "bf16" 
+    # History-embedding dtype for normal-equation assembly: "bf16"
+    # gathers and multiplies the history slabs in bfloat16 with f32
+    # accumulation; "f32" keeps float32; "auto" is f32 on every
+    # backend (bf16 is faster on the GPU but moves dim-512 fold-in
+    # embeddings too far, PERF.md).
+    compute_dtype: str = "auto"   # "auto" | "f32" | "bf16"
     cg_error_tolerance: float = 1e-10
     cg_max_iterations: int = 100
     epochs: int = 50
 
-    # --- TPU-native knobs (no reference equivalent) ---
+    # --- knobs with no reference equivalent ---
     # Random seed for explicit PRNG keys. The reference seeds from
     # std::random_device (ials.h:48-49) and is non-reproducible by design;
     # we improve on that with explicit keys.
@@ -84,8 +85,9 @@ class Config:
     # StepU then StepV (ialspp.h:208-261, safer2pp.h:303-319), with
     # live per-block Gramians and cross-view prediction carries
     # (models/common.py::block_sweep_interleaved). Default off: the
-    # phase-separated frozen sweep is faster on TPU and converges with
-    # the exact solvers; this mode reproduces the reference's exact
+    # phase-separated frozen sweep gathers each history slab once per
+    # sweep instead of once per block and converges with the exact
+    # solvers; this mode reproduces the reference's exact
     # update trajectory where that difference matters (BASELINE.md
     # round-3 head-to-head analysis). Requires dim % block_size == 0
     # (falls back to the frozen sweep otherwise).

@@ -8,16 +8,16 @@ dual sparse indexes ``by_user[u] = [(item, rating_index)...]`` and
 global tuple position keying the blockwise models' flat per-tuple
 prediction cache (reference include/frecsys/dataset.h:71-99,
 ialspp.h:210-216). That cache — and with it any per-tuple indexing — is
-deliberately absent here: on TPU, per-tuple (element) gathers/scatters
-are ~100x slower per value than row gathers, so the blockwise models
+deliberately absent here: per-tuple (element) gathers/scatters move one
+value where row gathers move whole embedding rows, so the blockwise models
 recompute predictions from the live tables instead
 (models/common.py::block_sweep_frozen). Both adjacency views
 carry only (row, col, length).
 
-TPU-native design
------------------
+Device design
+-------------
 Ragged per-row histories (5..10^3+ interactions) are the central layout
-problem: TPU programs need static shapes and MXU-sized tiles. We bucket
+problem: compiled XLA programs need static shapes. We bucket
 rows by history length into power-of-two padded tiles:
 
   Bucket(row_ids[N], col_ids[N, L], length[N])
@@ -157,8 +157,7 @@ class Bucket:
     solver-order renumbering) own the table row range
     ``[row_start, row_start + real rows)``: row reads become slices and
     write-backs become masked ``dynamic_update_slice``s at memcpy-class
-    bandwidth instead of TPU scatters (measured 54 GB/s in-graph —
-    8.8 ms/epoch of the dim-512 roofline). ``row_ids`` stays authoritative
+    bandwidth instead of scatters. ``row_ids`` stays authoritative
     either way (real rows are ``row_start + arange``; pads follow).
     """
 
@@ -333,8 +332,16 @@ def _renumber_buckets(buckets, perm_other: np.ndarray,
     return tuple(out)
 
 
-def _bucket_budgets(dim: int, budget_bytes: int) -> Tuple[int, int]:
-    """Per-bucket row/tuple caps from the embedding dim (0 = no cap).
+# One [rows, d, d] slab's budget on a 16 GiB device (scaled to the
+# device's memory by ``mesh_lib.memory_budget``).
+BUCKET_BUDGET_BYTES = 2 << 30
+
+
+def _bucket_budgets(dim: int, budget_bytes: Optional[int]
+                    ) -> Tuple[int, int]:
+    """Per-bucket row/tuple caps from the embedding dim (0 = no cap);
+    ``budget_bytes`` None means ``BUCKET_BUDGET_BYTES`` scaled to the
+    device.
 
     Caps the two big per-bucket intermediates: the batched normal
     equations [rows, d, d] (plus ~2 live copies in the solver) and the
@@ -342,8 +349,10 @@ def _bucket_budgets(dim: int, budget_bytes: int) -> Tuple[int, int]:
     product)."""
     if dim <= 0:
         return 0, 0
+    if budget_bytes is None:
+        budget_bytes = mesh_lib.memory_budget(BUCKET_BUDGET_BYTES)
     # One [rows, d, d] slab of ``budget`` bytes; solver copies live in the
-    # remaining HBM headroom (groups are serialized, models/common.py).
+    # remaining device memory (groups are serialized, models/common.py).
     max_rows = max(budget_bytes // (dim * dim * 4), 64)
     max_tuples = max(budget_bytes // (2 * dim * 4), 4096)
     return int(max_rows), int(max_tuples)
@@ -406,7 +415,7 @@ class DeviceData:
         row_multiple: int = 8,
         growth: int = 2,
         dim: int = 0,
-        memory_budget_bytes: int = 2 << 30,
+        memory_budget_bytes: Optional[int] = None,
     ) -> "DeviceData":
         num_users = num_users or ds.num_users
         num_items = num_items or ds.num_items
@@ -531,7 +540,7 @@ class FoldInData:
         chunk: int = 1024,
         growth: int = 2,
         dim: int = 0,
-        memory_budget_bytes: int = 2 << 30,
+        memory_budget_bytes: Optional[int] = None,
     ) -> "FoldInData":
         row_multiple = row_multiple * mesh_lib.num_shards(mesh)
         max_rows, max_tuples = _bucket_budgets(dim, memory_budget_bytes)

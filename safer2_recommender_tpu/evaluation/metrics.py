@@ -74,11 +74,10 @@ def topk_ids(scores: jax.Array, excl: jax.Array, k: int,
     out (the serving-path counterpart of ``topk_metrics``).
 
     scores [B, I]; excl [B, H] history ids (padded with I, dropped).
-    ``approx=True`` uses the TPU's hardware-path ``approx_max_k``
-    (default ~0.95 per-element recall — near-ties may swap in/out):
-    measured 12x faster than exact ``top_k`` at [8192, 40k] k=100
-    (37 vs 135 ms including the scoring matmul).
-    Evaluation always uses the exact path (reference parity).
+    ``approx=True`` uses ``jax.lax.approx_max_k`` (default ~0.95
+    per-element recall target — near-ties may swap in/out); its speed
+    depends on how the backend lowers it. Evaluation always uses the
+    exact path (reference parity).
     """
     b, num_items = scores.shape
     neg = jnp.finfo(scores.dtype).min

@@ -1,7 +1,7 @@
 """Shared batched building blocks for all six model families.
 
 Each function maps a whole padded bucket of users/items to new embedding
-rows in one device program — the TPU-native replacement for the
+rows in one device program — the batched replacement for the
 reference's per-row ``Project*`` functions running inside thread pools
 (reference ials.h:88-144, safer2.h:104-221, ialspp.h:85-145,
 safer2pp.h:97-216).
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from safer2_recommender_tpu.data.dataset import Bucket
 from safer2_recommender_tpu.ops import assemble, solve, woodbury
 from safer2_recommender_tpu.ops.woodbury import SolveParams
+from safer2_recommender_tpu.parallel.mesh import memory_budget
 
 
 def safe_len(bucket: Bucket) -> jax.Array:
@@ -39,13 +40,18 @@ def safe_len(bucket: Bucket) -> jax.Array:
 # --------------------------------------------------------------------------
 
 
-def _solve_groups(buckets, dim: int, budget_bytes: int = 2 << 30,
+# One solve group's live-slab budget on a 16 GiB device (scaled to the
+# device's memory by ``mesh.memory_budget``).
+SOLVE_GROUP_BYTES = 2 << 30
+
+
+def _solve_groups(buckets, dim: int, budget_bytes: int = None,
                   gather_dim: int = None):
     """Greedily group buckets so one solve batch's live slabs — the
     [rows, d, d] systems (~2 solver copies) AND the gathered
     [rows, L, d] history slabs — stay under the memory budget. The
     gather term matters for zipf-head widths: several [200, 2048, d]
-    slabs fit the d x d budget but their gathers alone exceeded HBM at
+    slabs fit the d x d budget but their gathers alone exceeded memory at
     MSD scale before it was accounted. ``gather_dim`` overrides the
     gathered-slab width when it differs from the system size (blockwise
     sweeps solve [bs, bs] systems but gather full-width rows)."""
@@ -56,6 +62,8 @@ def _solve_groups(buckets, dim: int, budget_bytes: int = 2 << 30,
             assemble.is_wide(b, g_dim)) else b.width
         return b.n_rows * (dim * dim * 4 + w_eff * (g_dim + 1) * 4)
 
+    if budget_bytes is None:
+        budget_bytes = memory_budget(SOLVE_GROUP_BYTES)
     floor = 64 * dim * dim * 4
     cap = max(budget_bytes, floor)
     groups, cur, used = [], [], 0
@@ -94,9 +102,9 @@ def tie_bucket(b: Bucket, carry) -> Bucket:
     """Make a bucket's gather indices data-dependent on the sweep carry.
 
     Scan bodies read only the frozen table, so if XLA unrolls a short
-    scan (it does for small trip counts on TPU), nothing orders one
-    chunk's [N, L, d] gather after the previous chunk's solve and every
-    slab goes live at once (measured 26G on a 16G chip at MSD scale).
+    scan (it may for small trip counts), nothing orders one chunk's
+    [N, L, d] gather after the previous chunk's solve and every slab
+    goes live at once (out of memory at MSD scale).
     Adding an always-zero token derived from the carry restores the
     chain; inside a rolled loop it is free.
     """
@@ -147,20 +155,20 @@ def assemble_rotated(p: SolveParams, eig) -> Tuple[jax.Array, jax.Array,
 
     With G = Q diag(lam) Q^T (the decomposition the Woodbury path
     already computes once per sweep), rotating the gathered histories
-    once (E_rot = E @ Q, one plain MXU matmul over rows that would be
+    once (E_rot = E @ Q, one plain matmul over rows that would be
     assembled anyway) makes the whole c1*G term DIAGONAL:
 
         Q^T A Q = (E_rot)^T diag(wt) E_rot + diag(c0 + c1*lam)
 
     so it rides the solver's lazy diagonal shift as a [N, d] vector
     ridge instead of a full memory-bound broadcast-add pass over the
-    [N, d, d] systems (~4 ms/epoch at dim 512). Solve the rotated
+    [N, d, d] systems. Solve the rotated
     system, then rotate the solution back: x = y @ Q^T.
 
     Returns (a_rot, rhs_rot, ridge [N, d]).
     """
     q, lam = eig
-    # The rotation matmul emits directly in the compute dtype (MXU
+    # The rotation matmul emits directly in the compute dtype (the
     # accumulation stays f32); an f32 output + astype was a full
     # convert pass over the largest slab in the program.
     emb_rot = jax.lax.dot_general(
@@ -179,10 +187,9 @@ def assemble_from_params(p: SolveParams, gram: jax.Array
 
     A = c1*G + emb^T diag(wt) emb ;  rhs = emb^T r.
 
-    The ridge c0*I is NOT added here: it rides the solver's lazy
-    diagonal shift (``solve.solve(..., ridge=p.c0)`` /
-    ``block_chol._leaf_kernel``) — a slab-wide eye add is a full
-    memory-bound pass over the [N, d, d] systems. On the wide
+    The ridge c0*I is NOT added here: it rides the solver's ridge
+    argument (``solve.solve(..., ridge=p.c0)``), so no extra slab-wide
+    pass over the [N, d, d] systems adds it. On the wide
     (column-chunked) path the c1*G term seeds the streaming
     accumulator and the row coefficient folds into the chunk weights,
     so no post-pass over the [N, d, d] slab remains there either.
@@ -237,7 +244,7 @@ def solve_sweep(table: jax.Array, buckets, params_fn, gram, *,
     dispatch of it dominated small-dim epochs), and each group's work is
     data-dependent on the previous group's solution so XLA cannot
     schedule every [rows, L, d] gather / [rows, d, d] system slab live
-    at once (HBM OOM at dim 512 otherwise): without ``pre`` the token
+    at once (out of memory at dim 512 otherwise): without ``pre`` the token
     ties the gather indices; with ``pre`` (slabs already live, gated by
     ``FUSE_BUDGET_BYTES``) it ties the ridge term instead.
     """
@@ -488,7 +495,7 @@ def block_sweep_frozen(table_self, table_other, buckets, gram, spec_fn,
     Structured bucket-outer / block-inner: each bucket gathers its
     [N, L, d] history slab ONCE and every block (of every sweep, for the
     fold-in's ``n_sweeps=8``) slices it, with per-slot predictions
-    maintained incrementally — the TPU-native equivalent of the
+    maintained incrementally — the batched equivalent of the
     reference's flat prediction cache (ialspp.h:399-406,
     safer2pp.h:504-508), but slab-local: no per-tuple scatters, and the
     drift resets every sweep because pred is recomputed from the live
@@ -520,15 +527,10 @@ def block_sweep_frozen(table_self, table_other, buckets, gram, spec_fn,
     ``woodbury.maybe_eigh``) and upgrades every Woodbury-ELIGIBLE
     bucket (2 * width <= dim) to ONE full-dim block per sweep solved
     via full-dim Woodbury; only wider (long-history / streamed) rows
-    keep the bs-block sweeps. Rationale (round-3 traces, dim 512,
-    block 64, 50k-user workload): the per-block bs x bs Cholesky
-    kernels were 36% of the ++ epoch at ~0.7 TF/s (VPU-bound), while
-    ONE L x L capacitance solve per row replaces all dim/bs of them —
-    and the bs-block sweep's rotation savings (L*bs*d vs L*d^2 FLOPs
-    per row) turned out bandwidth-bound on the same slab bytes, so
-    they save no wall time on TPU. Measured ladder: uniform bs-blocks
-    313 ms -> mid-width upgraded 253 ms -> all eligible upgraded
-    214 ms (exact safer2: 201 ms). A full-dim block is still block
+    keep the bs-block sweeps. Rationale: ONE L x L capacitance solve
+    per row replaces all dim/bs per-block bs x bs Cholesky solves, and
+    the bs-block sweep's rotation savings (L*bs*d vs L*d^2 FLOPs per
+    row) are bound by the same slab bytes. A full-dim block is still block
     coordinate descent (the largest block), so fixed points and the
     model contract are unchanged — only the per-sweep trajectory
     improves (a full solve is the limit the block sweep iterates
@@ -551,9 +553,8 @@ def block_sweep_frozen(table_self, table_other, buckets, gram, spec_fn,
     # solved via ONE batched eigh of the frozen Gramian's diagonal
     # blocks (G_ss = Q_k diag(lam_k) Q_k^T, shared by every row) plus a
     # per-row L x L capacitance solve (ops/woodbury.py::solve_rhs) —
-    # skipping both the bs x bs Cholesky inversion (the VPU-bound bulk
-    # of the sweep: 150 of 233 ms at dim 512, measured by trace) and
-    # the per-row bs x bs Gramian einsum. Most rows qualify: history
+    # skipping both the bs x bs Cholesky solve and the per-row bs x bs
+    # Gramian einsum. Most rows qualify: history
     # lengths are power-law (ML-1M/MSD median well under 32).
     q_full = lam_full = None
     if eig is not None and not os.environ.get("FRT_NO_FULL_WOOD"):
@@ -729,8 +730,7 @@ def block_sweep_interleaved(u, v, by_user, by_item, spec_u_fn, spec_v_fn,
     cache (ialspp.h:399-406) becomes per-slot prediction arrays carried
     in BOTH adjacency views; a block's embedding deltas cross views as
     a [num_rows, bs] delta table that the other view row-gathers — no
-    per-element scatters (docs/PERFORMANCE.md on why those are ruled
-    out).
+    per-element scatters.
 
     ``spec_*_fn(bucket) -> BlockSpec`` as in ``block_sweep_frozen``;
     ``extra_vec_v`` routes the item sweep's per-slot z/|H_u| weights;
@@ -765,7 +765,7 @@ def block_sweep_interleaved(u, v, by_user, by_item, spec_u_fn, spec_v_fn,
         bucket's carried [N, c*w] predictions uses the same plan."""
         n, l = b.col_ids.shape
         w = min(assemble.WIDE_CHUNK, l)
-        while w > 256 and n * w * (bs + 1) * 4 > assemble.WIDE_SLAB_BYTES:
+        while w > 256 and n * w * (bs + 1) * 4 > assemble.wide_slab_bytes():
             w = (w + 1) // 2
         return w, -(-l // w)
 
@@ -1062,16 +1062,17 @@ def user_losses(user_emb: jax.Array, item_emb: jax.Array,
 
 
 # Keep the loss pass's gathered [N, L, d] slabs alive for reuse by the
-# following U-sweep only when they all fit comfortably in HBM (they must
-# stay live across the global xi/z barrier). Above this, fall back to
-# re-gathering inside the (serialized, budget-capped) solve groups.
+# following U-sweep only when they all fit comfortably in device memory
+# (they must stay live across the global xi/z barrier). Above this, fall
+# back to re-gathering inside the (serialized, budget-capped) solve
+# groups. Bytes on a 16 GiB device, scaled by ``mesh.memory_budget``.
 FUSE_BUDGET_BYTES = 4 << 30
 
 
 def gather_and_losses(table_other: jax.Array, buckets, probe_table,
                       gramian: jax.Array, num_rows: int, uobs: float, *,
                       halve: bool, dtype=None,
-                      budget_bytes: int = FUSE_BUDGET_BYTES):
+                      budget_bytes: int = None):
     """Per-row losses of the *carried* model, fused with the U-sweep.
 
     Computes the same per-user losses as ``user_losses`` (reference
@@ -1093,6 +1094,8 @@ def gather_and_losses(table_other: jax.Array, buckets, probe_table,
     # fusion for everyone else, they just get a None pre entry.
     total = sum(b.n_rows * b.width for b in buckets
                 if not assemble.is_wide(b, dim)) * dim * bytes_per
+    if budget_bytes is None:
+        budget_bytes = memory_budget(FUSE_BUDGET_BYTES)
     keep = total <= budget_bytes
     out = jnp.zeros((num_rows,), jnp.float32)
     pre = [] if keep else None

@@ -5,7 +5,7 @@ exact alternating solves with frequency-scaled regularization
 reg*(|H| + uobs*n)^exp (ials.h:310-315) and Gramian-based unobserved term.
 One epoch = user sweep, item sweep, loss computation (ials.h:187-224).
 
-TPU design: each sweep is `for bucket: batched assemble + Cholesky`,
+Device design: each sweep is `for bucket: batched assemble + Cholesky`,
 with the global Gramian computed once as a full-table matmul (ials.h:321).
 Note iALS's per-user loss has no /2, unlike the other five models
 (ials.h:70-86; SURVEY.md section 5 quirk 2).

@@ -8,8 +8,8 @@ delta solves over blocks of size ``block_size``:
   rhs = sum_h v_loc (pred - 1) + uobs * G_lg @ x + reg * x_loc
   x_loc <- x_loc - A^-1 rhs                        (ialspp.h:85-145)
 
-Train epoch = full U block sweep, then full V block sweep — the
-TPU-native reordering of the reference's per-block U/V interleave
+Train epoch = full U block sweep, then full V block sweep — a
+batched reordering of the reference's per-block U/V interleave
 (ialspp.h:208-261): with the other side frozen, every block's
 G_loc/G_lg are slices of ONE Gramian and each bucket's history slab is
 gathered once per sweep instead of once per block (see

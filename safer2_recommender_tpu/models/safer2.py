@@ -13,7 +13,7 @@ One Train call = pd_iterations x {z, U, V, refresh V^T V, losses} then
 the xi update (safer2.h:266-334). ``get_mean_weight`` tracks alpha
 (Proposition C.1, safer2.h:812-817) — the test gate alpha +/- 0.02.
 
-TPU design: z and xi are pure vector math on the [num_users] loss vector
+Device design: z and xi are pure vector math on the [num_users] loss vector
 (replicated; psum'd statistics on a mesh); U/V sweeps are bucketed batched
 Cholesky solves; SNR sampling uses explicit PRNG keys on device.
 """
@@ -55,7 +55,7 @@ class SAFER2(SaferFamilyMixin, Recommender):
         reference's trailing pair of epoch k-1 (u, v unchanged in
         between, so the recomputed loss is value-identical). The payoff:
         the loss pass reads the same frozen item table as the U-step,
-        so one gather (the dominant TPU epoch cost) serves both.
+        so one gather (a large share of the epoch) serves both.
         """
         cfg = self.cfg
         present = dd.user_hist_size > 0

@@ -1,6 +1,6 @@
 // Native ingest: 2-column "uid,sid" CSV -> COO int32 arrays.
 //
-// TPU-native equivalent of the reference's C++ Dataset loader (reference
+// Parallel equivalent of the reference's C++ Dataset loader (reference
 // include/frecsys/dataset.h:71-99): the reference parses line-by-line with
 // std::getline/atoi into unordered_map adjacency; we parse the raw bytes in
 // parallel into flat COO arrays that are handed straight to device_put.

@@ -2,7 +2,7 @@
 
 This module replaces the reference's per-user streaming rank-128 updates
 (reference ials.h:107-131: ``matrix_symm.rankUpdate(factor_batch)`` inside
-a thread-pool loop) with *batched* MXU work: for a bucket of N rows whose
+a thread-pool loop) with *batched* matmul work: for a bucket of N rows whose
 histories are padded to L columns,
 
     A_hist[n] = sum_{l < len(n)} v_{n,l} v_{n,l}^T
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from safer2_recommender_tpu.data.dataset import Bucket
+from safer2_recommender_tpu.parallel.mesh import memory_budget
 
 
 def history_mask(bucket: Bucket) -> jax.Array:
@@ -54,12 +55,11 @@ def gather_history_extra(table: jax.Array, vec: jax.Array, bucket: Bucket,
     """Fused row gather of the embedding rows AND a per-row scalar.
 
     Returns (emb [N, L, d] masked, mask [N, L], extra [N, L] f32 masked)
-    where ``extra[n, l] = vec[col_ids[n, l]]``. A separate element gather
-    ``vec[bucket.col_ids]`` is slower than the whole [N, L, d] row gather
-    on TPU (measured 1.2 ms vs 0.27 ms at [296, 512] x dim 32 on v5e:
-    element gathers can't use full tiles), so the scalar rides as an
-    extra column of the gathered table instead. The concatenated table is
-    identical across a sweep's buckets and CSE'd by XLA.
+    where ``extra[n, l] = vec[col_ids[n, l]]``. The scalar rides as an
+    extra column of the gathered table, so one row gather serves both
+    instead of a second element gather ``vec[bucket.col_ids]``. The
+    concatenated table is identical across a sweep's buckets and CSE'd
+    by XLA.
     """
     if dtype is not None:
         table = table.astype(dtype)
@@ -78,11 +78,17 @@ def gather_history_extra(table: jax.Array, vec: jax.Array, bucket: Bucket,
 # their [N, L, d] gathered slab is impossible (one width-2^20 bucket at
 # dim 512 is ~8.6 GB), so rows whose slab would exceed WIDE_SLAB_BYTES
 # stream their history through fixed-width column chunks instead — a
-# lax.scan accumulating the normal-equation pieces, the TPU equivalent
-# of the reference's rank-128 streaming updates (ials.h:107-131).
+# lax.scan accumulating the normal-equation pieces, the batched
+# equivalent of the reference's rank-128 streaming updates
+# (ials.h:107-131).
 
-WIDE_SLAB_BYTES = 768 << 20
+WIDE_SLAB_BYTES = 768 << 20     # on a 16 GiB device; see wide_slab_bytes
 WIDE_CHUNK = 4096
+
+
+def wide_slab_bytes() -> int:
+    """``WIDE_SLAB_BYTES`` scaled to this device's memory."""
+    return memory_budget(WIDE_SLAB_BYTES)
 
 
 def is_wide(bucket: Bucket, dim: int) -> bool:
@@ -90,7 +96,7 @@ def is_wide(bucket: Bucket, dim: int) -> bool:
     is the problem (width > dim keeps it off the Woodbury path; narrow
     slabs are already bounded by the build-time row chunking)."""
     return bucket.width > dim and (
-        bucket.n_rows * bucket.width * (dim + 1) * 4 > WIDE_SLAB_BYTES)
+        bucket.n_rows * bucket.width * (dim + 1) * 4 > wide_slab_bytes())
 
 
 def _wide_chunks(table: jax.Array, vec: Optional[jax.Array],
@@ -106,7 +112,7 @@ def _wide_chunks(table: jax.Array, vec: Optional[jax.Array],
     # trip is_wide while a single full-width "chunk" would materialize
     # the entire slab (no streaming at all).
     d_aug = table.shape[1] + (0 if vec is None else 1)
-    while w > 256 and n * w * d_aug * 4 > WIDE_SLAB_BYTES:
+    while w > 256 and n * w * d_aug * 4 > wide_slab_bytes():
         w = (w + 1) // 2
     c = -(-l // w)
     cols = bucket.col_ids
@@ -251,7 +257,7 @@ def row_gramians(emb: jax.Array, col_weight: Optional[jax.Array] = None,
     reference multiplies factors by sqrt(w) before rankUpdate,
     safer2.h:192; weighting one einsum operand is the same quadratic
     form without the sqrt round-trip). The weight is cast to the
-    embedding dtype so a bf16 assembly stays bf16 on the MXU.
+    embedding dtype so a bf16 assembly stays bf16 in the matmul.
     """
     lhs = emb if col_weight is None else (
         emb * col_weight[..., None].astype(emb.dtype))
@@ -265,11 +271,8 @@ def row_sums(emb: jax.Array, col_weight: Optional[jax.Array] = None,
 
     Contracts L against a ones vector (one non-batched dot_general)
     instead of ``jnp.sum(lhs.astype(f32))``: the astype materialized a
-    second, twice-as-wide copy of the slab that the reduce then re-read
-    — ~26 GB/epoch of pure dtype traffic on the dim-512 north-star
-    trace (the ``bf16 convert`` + half the ``reduce_sum`` roofline
-    classes, docs/PERFORMANCE.md). The dot reads the bf16 slab once and
-    accumulates in f32 on the MXU.
+    second, twice-as-wide copy of the slab that the reduce then re-read.
+    The dot reads the bf16 slab once and accumulates in f32.
     """
     lhs = emb if col_weight is None else (
         emb * col_weight[..., None].astype(emb.dtype))
@@ -283,9 +286,9 @@ def rowwise_dot(emb: jax.Array, vec: jax.Array) -> jax.Array:
     """Per-slot dots: [N, L, d] x [N, d] -> [N, L].
 
     Implemented as broadcast multiply + reduce instead of
-    ``einsum('nld,nd->nl')``: XLA lowers that einsum to a batched
-    per-element mat-vec whose fixed per-element MXU cost (~1us) dwarfs
-    the actual work for large N; the VPU form is traffic-bound instead.
+    ``einsum('nld,nd->nl')``, which XLA may lower to a batched
+    per-element mat-vec with a fixed per-element cost; the elementwise
+    form is bound by the slab's bytes instead.
     """
     return jnp.sum(emb * vec[:, None, :], axis=2)
 
@@ -298,10 +301,8 @@ def scatter_rows(table: jax.Array, row_ids: jax.Array,
     new_user_emb`` write-back (ials.h:352-354).
 
     Prefer ``scatter_bucket`` when a ``Bucket`` is in hand — contiguous
-    buckets bypass the TPU scatter lowering entirely (measured 54 GB/s
-    in-graph, 8.8 ms/epoch of the dim-512 roofline; declaring
-    sorted/unique indices made it WORSE — 38 GB/s — by inserting a
-    table copy).
+    buckets write back with ``dynamic_update_slice`` and bypass the
+    scatter lowering entirely.
     """
     return table.at[row_ids].set(values.astype(table.dtype), mode="drop")
 
@@ -327,7 +328,7 @@ def scatter_bucket(table: jax.Array, bucket: Bucket,
                    values: jax.Array) -> jax.Array:
     """Bucket-aware write-back (see ``scatter_rows``): contiguous
     buckets do a masked read-modify-write ``dynamic_update_slice`` at
-    memcpy-class bandwidth (54 -> ~740 GB/s measured); the [N] mask
+    memcpy-class bandwidth instead of a scatter; the [N] mask
     keeps padded rows at their current table values, so pad overhang
     into the next bucket's rows is harmless."""
     if _use_contig(bucket):
@@ -362,7 +363,7 @@ def scatter_bucket_vector(vec: jax.Array, bucket: Bucket,
 # NOTE: there is deliberately NO per-tuple prediction cache here. The
 # reference's flat rating-indexed cache (ialspp.h:399-406,
 # safer2pp.h:504-508) exists to avoid recomputing full dots on a CPU;
-# on TPU its by-item accesses are per-ELEMENT gathers/scatter-adds
-# (~100x slower per value than row gathers — docs/PERFORMANCE.md), so
-# the blockwise models recompute predictions from the live tables
-# instead (models/common.py::block_sweep_frozen).
+# on a device its by-item accesses are per-ELEMENT gathers/scatter-adds
+# where row gathers move whole embedding rows, so the blockwise models
+# recompute predictions from the live tables instead
+# (models/common.py::block_sweep_frozen).

@@ -101,8 +101,8 @@ def compute_xi(losses: jax.Array, prev_xi: jax.Array, key: jax.Array, *,
     return xi
 
 
-# Crossover between top_k(k) and a full sort for exact_quantile; see
-# scripts/probe_quantile.py for the measurement.
+# Crossover between top_k(k) and a full sort for exact_quantile (k-wide
+# top_k costs grow with k; a sort does not).
 _TOPK_MAX_K = 1024
 
 

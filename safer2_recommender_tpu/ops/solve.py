@@ -2,11 +2,9 @@
 
 Replaces the reference's per-row Eigen solves — ``Eigen::LLT`` Cholesky
 (ials.h:140-142) and ``Eigen::ConjugateGradient`` (ials.h:133-138) — with
-batched device implementations. The default path is the recursive block
-Cholesky inversion in ``ops/block_chol.py`` (see its docstring for why
-XLA's native batched ``cholesky``/``triangular_solve`` are ~3 orders of
-magnitude off the TPU roofline); ``xla_cholesky_solve`` keeps the native
-lowering available for comparison.
+batched device implementations. The direct path is ``spd_solve`` in
+``ops/block_chol.py``, which picks its implementation from the backend
+and the system width.
 """
 
 from __future__ import annotations
@@ -14,15 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from safer2_recommender_tpu.ops.block_chol import _lapack_solve
 from safer2_recommender_tpu.ops.block_chol import spd_solve as cholesky_solve
-
-
-def xla_cholesky_solve(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Solve a[n] x[n] = b[n] via XLA's native batched Cholesky lowering
-    (all-zero systems bumped to the identity, nonfinite rows scrubbed —
-    see ``block_chol._lapack_solve``, the single implementation)."""
-    return _lapack_solve(a, b, None)
 
 
 def cg_solve(a: jax.Array, b: jax.Array, *, tol: float = 1e-10,

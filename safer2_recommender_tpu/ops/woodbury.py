@@ -18,10 +18,9 @@ shrink the per-row solve to L x L:
     A_u^-1 b = M^-1 b - M^-1 Vt^T (I_L + Vt M^-1 Vt^T)^-1 Vt M^-1 b
 
 The heavy ops become ONE plain [N*L, d] x [d, d] matmul into the
-eigenbasis (full MXU rate — unlike batched per-row d x d math) and a
-batched L x L SPD solve. At dim 512 this cuts the per-row solve FLOPs by
-up to (d/L)^3 / 3 and sidesteps the batched-small-matmul MXU floor that
-limits the direct block-Cholesky path.
+eigenbasis (a large dense matmul, unlike batched per-row d x d math) and
+a batched L x L SPD solve. At dim 512 this cuts the per-row solve FLOPs
+by up to (d/L)^3 / 3.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 # Use Woodbury only when the history width is at most dim/2 (below that
 # the L x L path strictly dominates) and dim is large enough for the
-# per-sweep eigh (~40 ms at d=512 on one v5e chip) to amortize.
+# per-sweep eigh to amortize.
 MIN_DIM = 128
 
 
@@ -84,9 +83,8 @@ def refresh_eigh(gram: jax.Array, q_prev: jax.Array,
                  rel_tol: float) -> Tuple[jax.Array, jax.Array]:
     """Warm-started spectral decomposition Q diag(lam) Q^T ~= gram.
 
-    XLA's TPU eigh (QDWH spectral divide and conquer) costs ~10 ms at
-    d=512 and scales super-quadratically (6.4x from 256 to 512 on v5e):
-    it is the single most expensive op in a Woodbury-path epoch. But the
+    A cold eigh of the shared Gramian can be the most expensive single
+    op of a Woodbury-path epoch at large d. But the
     Gramian drifts slowly between ALS sweeps, and the solve does not
     need eigenPAIRS — only an orthogonal Q and diagonal lam whose
     reconstruction error stays in the noise class of the bf16
@@ -97,8 +95,7 @@ def refresh_eigh(gram: jax.Array, q_prev: jax.Array,
     eigh), and keep the block-diagonalizing update Q <- Q blkdiag(Qk).
     The dropped off-diagonal-block coupling is measured every call;
     when accumulated drift pushes it past ``rel_tol * ||B||_F`` the full
-    eigh runs instead (lax.cond — only one branch executes). Measured
-    warm path at d=512: ~3.5 ms vs ~10.2 ms cold.
+    eigh runs instead (lax.cond — only one branch executes).
     """
     d = gram.shape[0]
     k = d // _REFRESH_BLOCK
@@ -160,9 +157,9 @@ def _prep(emb: jax.Array, wt: jax.Array, c0: jax.Array, c1: jax.Array,
     ``K = Vt M^-1 Vt^T`` (its +I_L rides the solver's lazy shift).
 
     Dataflow (round 4): the rotation matmul emits ``w`` directly in the
-    compute dtype (MXU accumulation stays f32; the previous f32 slab +
-    two bf16 convert passes were 12.9 ms/epoch of pure dtype traffic on
-    the dim-512 north-star trace), and the weighted slab ``wts`` is
+    compute dtype (accumulation stays f32; an f32 slab plus two bf16
+    convert passes would be pure dtype traffic), and the weighted slab
+    ``wts`` is
     never materialized — the per-slot sqrt(wt) factors are rank-1 on
     (l, m), so they post-scale the [N, L, L] capacitance (<= L/d of the
     bytes) and fold into the small [N, L] operands in ``_finish``.
@@ -192,8 +189,8 @@ def _finish(z: jax.Array, s: jax.Array, rs: jax.Array, ws: jax.Array,
     With ``ws = diag(sq) W diag(rs)``: ``Vt z`` in the rotated basis is
     ``ws (z / rs)`` and ``Vt^T y`` is ``(ws^T y) / rs`` — the sqrt
     factors ride the small [N, d]/[N, L] vectors only."""
-    # matvec-like contractions as multiply+reduce (XLA's batched mat-vec
-    # lowering pays a fixed per-element MXU cost that dominates at scale)
+    # matvec-like contractions as multiply+reduce (a batched mat-vec
+    # lowering can pay a fixed per-element cost that dominates at scale)
     u = jnp.sum(ws * (z / rs)[:, None, :], axis=2)
     y = block_chol.spd_solve(k, u, jnp.ones((k.shape[0],), k.dtype))
     wty = jnp.sum(ws * y[:, :, None], axis=1) / rs

@@ -19,7 +19,7 @@ Id spaces: the solver-order item permutation (data/dataset.py::
 _solver_order) is applied on the HOST while the batch is packed (one
 int32 gather over the request's items), and the returned top-k ids are
 decoded the same way — the device program never sees original ids and
-no per-batch device-side fold remap (or its HBM cache) exists on this
+no per-batch device-side fold remap (or its device-memory cache) exists on this
 path.
 
 ``recommend_stream`` overlaps the host-side packing of batch k+1 with

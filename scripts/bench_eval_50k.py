@@ -5,8 +5,8 @@ The reference's MSD protocol evaluates 50,000 held-out users against a
 n_heldout_users=50000); every recorded eval number here previously used
 the 1k-user ML-1M fold. This probe builds a synthetic 50k-heldout-user
 fold at the MSD shape (power-law histories, 80/20 tr/te per user), runs
-``evaluate_dataset`` at dim 256/512 on the real chip, and reports wall
-time + device memory stats for BASELINE.md's eval-cost table.
+``evaluate_dataset`` at dim 256/512 on the default device, and reports
+wall time + device memory stats.
 
 Usage: python scripts/bench_eval_50k.py [dims...]   (default: 256 512)
 """

@@ -1,4 +1,4 @@
-"""Synthetic MSD-scale smoke benchmark: SAFER2 dim=512 on one chip.
+"""Synthetic MSD-scale smoke benchmark: SAFER2 dim=512 on one device.
 
 Generates a power-law implicit-feedback dataset approximating MSD's shape
 (configurable), builds the chunked device layout, and measures

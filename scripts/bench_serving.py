@@ -24,6 +24,8 @@ BATCH = int(sys.argv[3]) if len(sys.argv) > 3 else 8192
 
 
 def main():
+    import jax
+
     from safer2_recommender_tpu import (Config, Dataset, DeviceData,
                                         FoldInData, get_model)
     from safer2_recommender_tpu.cli import enable_compilation_cache
@@ -39,7 +41,7 @@ def main():
     model = get_model(MODEL, cfg, ds.num_users, ds.num_items)
     model.initialize(dd)
     model.train_epochs(dd, 1)
-    model.sync()
+    jax.block_until_ready(model.state)
 
     # fresh serving users: power-law histories over the trained catalog
     rng = np.random.default_rng(7)

@@ -2,7 +2,7 @@
 # Ours-side runs of the round-3 ++ high-dim head-to-head (VERDICT r2
 # item 5). Mirrors the reference runs in /tmp/h2h/ref_*.log (launched
 # from the same configs); compare with scripts/h2h_compare.py.
-# Runs on whatever backend is up (intended: the real TPU chip).
+# Runs on whatever backend JAX picks (intended: the GPU).
 set -x
 O=${1:-/tmp/h2h}
 D="--train_data /root/reference/tests/ml-1m/train.csv --test_train_data /root/reference/tests/ml-1m/validation_tr.csv --test_test_data /root/reference/tests/ml-1m/validation_te.csv --stdev 0.1 --epoch 50"

@@ -122,11 +122,10 @@ def test_fold_in_data(tiny):
 
 def test_contiguous_writeback_compiles_scatter_free():
     # The solver-order renumbering exists so write-backs compile to
-    # dynamic-update-slices, not TPU scatters (54 GB/s in-graph —
-    # docs/PERFORMANCE.md). Guard it: with id gaps providing pad slack
-    # (every bucket contiguous), the compiled epoch must contain NO
-    # scatter op. A silent fall-back to the scatter path would cost
-    # ~9 ms/epoch at the north-star shape without failing any test.
+    # dynamic-update-slices, not scatters. Guard it: with id gaps
+    # providing pad slack (every bucket contiguous), the compiled epoch
+    # must contain NO scatter op. A silent fall-back to the scatter path
+    # would cost time without failing any other test.
     import jax
     import numpy as np
 

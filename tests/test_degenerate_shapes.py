@@ -2,7 +2,7 @@
 pathological datasets without crashing or producing non-finite state.
 
 The reference tolerates these implicitly (per-row loops just run 0 or 1
-times); the bucketed/padded TPU layout has more edge machinery (width-1
+times); the bucketed/padded device layout has more edge machinery (width-1
 buckets, single-row buckets, all-gap sides, n_pad > n_real) that only
 these shapes exercise.
 """

@@ -91,7 +91,7 @@ def test_recommend_serving_api(tiny):
 
 
 def test_recommend_approx_mode(tiny):
-    # approx=True (TPU approx_max_k; exact fallback on CPU) must keep
+    # approx=True (jax.lax.approx_max_k; exact fallback on CPU) must keep
     # the serving invariants — valid original ids, history excluded —
     # and substantially agree with the exact ranking.
     import numpy as np

@@ -4,8 +4,13 @@ Every equivalence test elsewhere compares two of OUR code paths; these
 re-derive an epoch per row with plain numpy linear algebra straight
 from the reference's math (reference ials.h:88-144,187-224 and
 safer2.h:104-221,266-334) and demand the bucketed/padded/solver-order
-TPU pipeline reproduce it to float tolerance. Nothing is shared with
-the implementation under test except the Config values.
+device pipeline reproduce it to float tolerance. Nothing is shared
+with the implementation under test except the Config values.
+
+Each ``oracle_*`` function trains the model one epoch (cvar_mf: two)
+and returns its comparisons as ``(label, got, want, rtol, atol)``
+tuples; the tests assert them, and ``chip_smoke.py`` runs the same
+oracles on the card (``ORACLES``).
 """
 
 import numpy as np
@@ -14,14 +19,25 @@ import pytest
 from safer2_recommender_tpu import Config, Dataset, DeviceData, get_model
 
 
-@pytest.fixture()
-def small():
+def small_dataset():
+    """(Dataset, DeviceData): 90 users x 40 items, ~2k interactions."""
     rng = np.random.default_rng(42)
     pairs = np.unique(np.stack([rng.integers(0, 90, 2500),
                                 rng.integers(0, 40, 2500)], 1),
                       axis=0).astype(np.int32)
     ds = Dataset(pairs[:, 0], pairs[:, 1])
     return ds, DeviceData.build(ds)
+
+
+@pytest.fixture()
+def small():
+    return small_dataset()
+
+
+def assert_cases(cases):
+    for label, got, want, rtol, atol in cases:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=label)
 
 
 def _adj(ds):
@@ -44,7 +60,10 @@ def test_ials_epoch_matches_numpy_oracle(small, dim):
     # dim 8 runs the direct batched-Cholesky path; dim 128 activates
     # the Woodbury exact solves + rotated direct assembly
     # (ops/woodbury.py MIN_DIM) — both must reproduce the dense oracle.
-    ds, dd = small
+    assert_cases(oracle_ials(*small, dim=dim))
+
+
+def oracle_ials(ds, dd, dim):
     cfg = Config(dim=dim, uobs_weight=0.1, l2_reg=0.003, l2_reg_exp=1.0,
                  stdev=0.1, compute_dtype="f32", seed=5)
     m = get_model("ials", cfg, ds.num_users, ds.num_items)
@@ -75,8 +94,8 @@ def test_ials_epoch_matches_numpy_oracle(small, dim):
     # f32 pipeline vs float64 oracle: absolute error grows with the
     # accumulation length (dim); observed max ~5e-5 at dim 128
     atol = 2e-5 * max(1, dim // 8)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=atol)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=atol)
+    return [("user_emb", got["user_emb"], u1, 2e-4, atol),
+            ("item_emb", got["item_emb"], v1, 2e-4, atol)]
 
 
 def test_safer2_epoch_matches_numpy_oracle(small):
@@ -84,7 +103,10 @@ def test_safer2_epoch_matches_numpy_oracle(small):
     # safer2.h:819-838), so the oracle covers the z/U/V/Gramian/loss
     # wiring without re-deriving the Newton-Raphson machinery (that has
     # its own unit tests in test_ops.py).
-    ds, dd = small
+    assert_cases(oracle_safer2(*small))
+
+
+def oracle_safer2(ds, dd):
     cfg = Config(dim=8, uobs_weight=0.004, l2_reg=0.004, alpha=0.3,
                  bandwidth=0.15, xi_iterations=0, pd_iterations=1,
                  compute_dtype="f32", seed=5)
@@ -144,21 +166,25 @@ def test_safer2_epoch_matches_numpy_oracle(small):
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["dual_weight"][hist_size > 0],
-                               dual[hist_size > 0], rtol=1e-4, atol=1e-5)
+    present = hist_size > 0
     # the stored loss is phase-shifted: it describes the PRE-epoch model
     # (the reference's trailing ComputeUserLoss of the previous epoch)
-    np.testing.assert_allclose(got["user_loss"][hist_size > 0],
-                               loss0[hist_size > 0], rtol=2e-4, atol=2e-5)
+    return [("user_emb", got["user_emb"], u1, 2e-4, 2e-5),
+            ("item_emb", got["item_emb"], v1, 2e-4, 2e-5),
+            ("dual_weight", got["dual_weight"][present], dual[present],
+             1e-4, 1e-5),
+            ("user_loss", got["user_loss"][present], loss0[present],
+             2e-4, 2e-5)]
 
 
 def test_erm_mf_epoch_matches_numpy_oracle(small):
     # Constant-alpha dual weighting + the item_reg sum(1/|H_u|) law
     # (reference erm_mf.h:91-210, :384-395, :580-586) — structurally the
     # safer2 oracle with z_u == alpha for every user and no xi machinery.
-    ds, dd = small
+    assert_cases(oracle_erm_mf(*small))
+
+
+def oracle_erm_mf(ds, dd):
     cfg = Config(dim=8, uobs_weight=0.004, l2_reg=0.004, alpha=0.3,
                  compute_dtype="f32", seed=5)
     m = get_model("erm_mf", cfg, ds.num_users, ds.num_items)
@@ -210,13 +236,15 @@ def test_erm_mf_epoch_matches_numpy_oracle(small):
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
+    present = hist_size > 0
     # dual weight is the CONSTANT alpha; stored loss is phase-shifted
     # (describes the pre-epoch model, PARITY.md section 5)
-    np.testing.assert_allclose(got["dual_weight"], alpha, atol=1e-7)
-    np.testing.assert_allclose(got["user_loss"][hist_size > 0],
-                               loss0[hist_size > 0], rtol=2e-4, atol=2e-5)
+    return [("user_emb", got["user_emb"], u1, 2e-4, 2e-5),
+            ("item_emb", got["item_emb"], v1, 2e-4, 2e-5),
+            ("dual_weight", got["dual_weight"],
+             np.full(nu, alpha), 1e-7, 1e-7),
+            ("user_loss", got["user_loss"][present], loss0[present],
+             2e-4, 2e-5)]
 
 
 def test_cvar_mf_epoch_matches_numpy_oracle(small):
@@ -225,7 +253,10 @@ def test_cvar_mf_epoch_matches_numpy_oracle(small):
     # hard indicator is 1; epoch 2 exercises the exact alpha-quantile xi
     # (cvar_mf.h:582-595), the z indicator, the eta gradient steps
     # (cvar_mf.h:88-134) and the PRE-update-U V-step (cvar_mf.h:282-295).
-    ds, dd = small
+    assert_cases(oracle_cvar_mf(*small))
+
+
+def oracle_cvar_mf(ds, dd):
     cfg = Config(dim=8, uobs_weight=0.004, l2_reg=0.004, alpha=0.3,
                  stepsize=0.1, compute_dtype="f32", seed=5)
     m = get_model("cvar_mf", cfg, ds.num_users, ds.num_items)
@@ -297,15 +328,15 @@ def test_cvar_mf_epoch_matches_numpy_oracle(small):
         m.train_epoch(dd)
 
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["xi"], xi, rtol=1e-4, atol=1e-6)
-    np.testing.assert_array_equal(got["dual_weight"][present],
-                                  dual[present])
     # epoch-2 indicator must be non-trivial or the test proves nothing
     assert 0 < dual[present].sum() < present.sum()
-    np.testing.assert_allclose(got["user_loss"][present], loss[present],
-                               rtol=2e-4, atol=2e-5)
+    return [("user_emb", got["user_emb"], u, 2e-4, 2e-5),
+            ("item_emb", got["item_emb"], v, 2e-4, 2e-5),
+            ("xi", got["xi"], xi, 1e-4, 1e-6),
+            ("dual_weight", got["dual_weight"][present], dual[present],
+             0.0, 0.0),
+            ("user_loss", got["user_loss"][present], loss[present],
+             2e-4, 2e-5)]
 
 
 def _block_delta_step(x, vh, g, S, ch, cg, reg):
@@ -335,7 +366,20 @@ def test_ialspp_frozen_epoch_matches_numpy_oracle(small):
     # (delta systems of ialspp.h:85-145; ordering argument in
     # models/common.py::block_sweep_frozen). dim 8 stays below the
     # Woodbury gate, so the genuine per-block path runs.
-    ds, dd = small
+    assert_cases(oracle_ialspp(*small, interleaved=False))
+
+
+def test_ialspp_interleaved_epoch_matches_numpy_oracle(small):
+    # Reference-ORDER mode (--block_interleaved): per block s, StepU(s)
+    # for all users then StepV(s) for all items, with the local /
+    # local-global Gramians recomputed from the LIVE other table
+    # (ialspp.h:208-261, :362-365).
+    assert_cases(oracle_ialspp(*small, interleaved=True))
+
+
+def oracle_ialspp(ds, dd, interleaved):
+    if interleaved:
+        return _oracle_ialspp_interleaved(ds, dd)
     cfg = Config(dim=8, block_size=4, uobs_weight=0.1, l2_reg=0.003,
                  l2_reg_exp=1.0, compute_dtype="f32", seed=5)
     m = get_model("ialspp", cfg, ds.num_users, ds.num_items)
@@ -366,16 +410,11 @@ def test_ialspp_frozen_epoch_matches_numpy_oracle(small):
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
+    return [("user_emb", got["user_emb"], u1, 2e-4, 2e-5),
+            ("item_emb", got["item_emb"], v1, 2e-4, 2e-5)]
 
 
-def test_ialspp_interleaved_epoch_matches_numpy_oracle(small):
-    # Reference-ORDER mode (--block_interleaved): per block s, StepU(s)
-    # for all users then StepV(s) for all items, with the local /
-    # local-global Gramians recomputed from the LIVE other table
-    # (ialspp.h:208-261, :362-365).
-    ds, dd = small
+def _oracle_ialspp_interleaved(ds, dd):
     cfg = Config(dim=8, block_size=4, uobs_weight=0.1, l2_reg=0.003,
                  l2_reg_exp=1.0, compute_dtype="f32", seed=5,
                  block_interleaved=True)
@@ -405,8 +444,8 @@ def test_ialspp_interleaved_epoch_matches_numpy_oracle(small):
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
+    return [("user_emb", got["user_emb"], u1, 2e-4, 2e-5),
+            ("item_emb", got["item_emb"], v1, 2e-4, 2e-5)]
 
 
 def _safer2pp_setup(ds, cfg):
@@ -451,7 +490,10 @@ def test_safer2pp_epoch_matches_numpy_oracle(small, interleaved):
     # order: all U blocks (V + V^TV frozen), then all V blocks;
     # interleaved order: per block StepU/StepV with LIVE Gramians
     # (safer2pp.h:303-319).
-    ds, dd = small
+    assert_cases(oracle_safer2pp(*small, interleaved=interleaved))
+
+
+def oracle_safer2pp(ds, dd, interleaved):
     cfg = Config(dim=8, block_size=4, uobs_weight=0.004, l2_reg=0.004,
                  alpha=0.3, bandwidth=0.15, xi_iterations=0,
                  pd_iterations=1, compute_dtype="f32", seed=5,
@@ -503,15 +545,28 @@ def test_safer2pp_epoch_matches_numpy_oracle(small, interleaved):
 
     m.train_epoch(dd)
     got = m.export_state(dd)
-    np.testing.assert_allclose(got["user_emb"], u1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["item_emb"], v1, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(got["dual_weight"], dual,
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(got["xi"], xi, rtol=1e-4, atol=1e-6)
+    cases = [("user_emb", got["user_emb"], u1, 2e-4, 2e-5),
+             ("item_emb", got["item_emb"], v1, 2e-4, 2e-5),
+             ("dual_weight", got["dual_weight"], dual, 1e-4, 1e-5),
+             ("xi", got["xi"], xi, 1e-4, 1e-6)]
     if interleaved:
         # interleaved mode stores the END-of-epoch loss (from the
         # carried prediction slots, safer2pp.h:611-652)
         present = hist_size > 0
-        np.testing.assert_allclose(got["user_loss"][present],
-                                   losses(u1, v1)[present],
-                                   rtol=2e-4, atol=2e-5)
+        cases.append(("user_loss", got["user_loss"][present],
+                      losses(u1, v1)[present], 2e-4, 2e-5))
+    return cases
+
+
+# Every oracle above, by name, with its arguments (chip_smoke.py).
+ORACLES = {
+    "ials_dim8": (oracle_ials, {"dim": 8}),
+    "ials_dim128": (oracle_ials, {"dim": 128}),
+    "safer2": (oracle_safer2, {}),
+    "erm_mf": (oracle_erm_mf, {}),
+    "cvar_mf": (oracle_cvar_mf, {}),
+    "ialspp_frozen": (oracle_ialspp, {"interleaved": False}),
+    "ialspp_interleaved": (oracle_ialspp, {"interleaved": True}),
+    "safer2pp_frozen": (oracle_safer2pp, {"interleaved": False}),
+    "safer2pp_interleaved": (oracle_safer2pp, {"interleaved": True}),
+}

@@ -191,40 +191,34 @@ def _random_spd(rng, n, d, ridge=0.05):
     return jnp.asarray(a)
 
 
-@pytest.fixture(params=["lapack", "blocked"])
-def spd_solve_path(request, monkeypatch):
-    """Run an spd_solve test under BOTH dispatches: the CPU-default LAPACK
-    path and (via FRT_NO_LAPACK_SOLVE) the blocked inversion that runs on
-    TPU — the CPU suite must keep covering the TPU code path."""
+@pytest.fixture(params=["native", "factored"])
+def spd_solve_path(request):
+    """Each solver path of ``block_chol.SOLVERS``, jitted on its own with
+    spd_solve's diagonal handling (``solve_path``): the CPU suite covers
+    every path whichever one ``solver_for`` picks on this backend."""
+    import functools
+
     from safer2_recommender_tpu.ops import block_chol
 
-    if request.param == "blocked":
-        monkeypatch.setenv("FRT_NO_LAPACK_SOLVE", "1")
-    block_chol.spd_solve.clear_cache()
-    yield request.param
-    block_chol.spd_solve.clear_cache()
+    return jax.jit(functools.partial(block_chol.solve_path, request.param))
 
 
 @pytest.mark.parametrize("d", [1, 2, 5, 8, 16, 24, 32, 96, 128, 256])
 def test_spd_solve_matches_numpy(d, spd_solve_path):
-    from safer2_recommender_tpu.ops import block_chol
-
     rng = np.random.default_rng(d)
     a = _random_spd(rng, 17, d)
     b = jnp.asarray(rng.normal(size=(17, d)).astype(np.float32))
-    x = np.asarray(block_chol.spd_solve(a, b))
+    x = np.asarray(spd_solve_path(a, b))
     want = np.linalg.solve(np.asarray(a), np.asarray(b)[..., None])[..., 0]
     np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
 
 
 def test_spd_solve_zero_rows_stay_finite(spd_solve_path):
-    from safer2_recommender_tpu.ops import block_chol
-
     rng = np.random.default_rng(0)
     a = np.array(np.asarray(_random_spd(rng, 8, 16)))
     a[3] = 0.0  # padded row: all-zero system
     b = jnp.asarray(rng.normal(size=(8, 16)).astype(np.float32))
-    x = np.asarray(block_chol.spd_solve(jnp.asarray(a), b))
+    x = np.asarray(spd_solve_path(jnp.asarray(a), b))
     assert np.isfinite(x).all()
     # non-padded rows still solved correctly
     want = np.linalg.solve(a[4:], np.asarray(b)[4:, :, None])[..., 0]
@@ -234,31 +228,88 @@ def test_spd_solve_zero_rows_stay_finite(spd_solve_path):
 def test_spd_solve_rank_deficient_stays_finite(spd_solve_path):
     # l2_reg=0 is a legal config: a row with history L < dim then assembles
     # an exactly singular PSD system with a NONZERO diagonal (the all-zero
-    # bump misses it). Neither dispatch may leak NaN into the tables.
-    from safer2_recommender_tpu.ops import block_chol
-
+    # bump misses it). No path may leak NaN into the tables.
     rng = np.random.default_rng(2)
     v = rng.normal(size=(6, 3, 16)).astype(np.float32)  # L=3 < d=16
     a = jnp.asarray(np.einsum("nld,nle->nde", v, v))
     b = jnp.asarray(v.sum(1))
-    x = np.asarray(block_chol.spd_solve(a, b))
+    x = np.asarray(spd_solve_path(a, b))
     assert np.isfinite(x).all()
 
 
-def test_chol_inverse_lower_triangular():
+def test_solver_for_picks_from_backend_and_width():
+    # measured choice (scripts/time_solver.py): cuSOLVER/LAPACK on the
+    # GPU at every width; on the CPU LAPACK below 128, factored above
     from safer2_recommender_tpu.ops import block_chol
 
-    rng = np.random.default_rng(1)
-    a = _random_spd(rng, 5, 12)
-    inv = np.asarray(block_chol.chol_inverse(a))
-    # strictly upper triangle is exactly zero
-    iu = np.triu_indices(12, k=1)
-    assert (inv[:, iu[0], iu[1]] == 0.0).all()
-    # inv @ chol(a) == I
-    l = np.linalg.cholesky(np.asarray(a))
-    eye = np.einsum("nij,njk->nik", inv, l)
-    np.testing.assert_allclose(eye, np.broadcast_to(np.eye(12), eye.shape),
-                               atol=5e-4)
+    for d in (1, 32, 127, 128, 512, 1024):
+        assert block_chol.solver_for("gpu", d) == "native"
+    assert block_chol.solver_for("cpu", 32) == "native"
+    assert block_chol.solver_for("cpu", 127) == "native"
+    assert block_chol.solver_for("cpu", 128) == "factored"
+    assert block_chol.solver_for("cpu", 512) == "factored"
+    assert set(block_chol.SOLVERS) == {"native", "factored"}
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_spd_solve_dispatches_to_chosen_path(d, monkeypatch):
+    # spd_solve runs exactly the path solver_for names for this backend
+    from safer2_recommender_tpu.ops import block_chol
+
+    called = []
+    for name, fn in list(block_chol.SOLVERS.items()):
+        def spy(a, b, r, _name=name, _fn=fn):
+            called.append(_name)
+            return _fn(a, b, r)
+        monkeypatch.setitem(block_chol.SOLVERS, name, spy)
+    block_chol.spd_solve.clear_cache()
+    rng = np.random.default_rng(d)
+    a = _random_spd(rng, 4, d)
+    b = jnp.asarray(rng.normal(size=(4, d)).astype(np.float32))
+    block_chol.spd_solve(a, b)
+    block_chol.spd_solve.clear_cache()
+    assert called == [block_chol.solver_for(jax.default_backend(), d)]
+
+
+def test_spd_solve_full_diagonal_ridge(spd_solve_path):
+    # ridge [N, d]: a per-diagonal-element shift (the rotated direct path)
+    rng = np.random.default_rng(8)
+    d = 24
+    a = _random_spd(rng, 7, d)
+    b = jnp.asarray(rng.normal(size=(7, d)).astype(np.float32))
+    ridge = rng.uniform(0.01, 0.5, (7, d)).astype(np.float32)
+    x = np.asarray(spd_solve_path(a, b, jnp.asarray(ridge)))
+    aa = np.asarray(a) + ridge[:, :, None] * np.eye(d)
+    want = np.linalg.solve(aa, np.asarray(b)[..., None])[..., 0]
+    np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
+
+
+def test_scrub_nonfinite_zeroes_bad_rows():
+    from safer2_recommender_tpu.ops import block_chol
+
+    x = jnp.asarray([[1.0, 2.0], [np.nan, 1.0], [np.inf, 0.0], [3.0, 4.0]])
+    got = np.asarray(block_chol._scrub_nonfinite(x))
+    np.testing.assert_array_equal(got, [[1, 2], [0, 0], [0, 0], [3, 4]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(4096, 32), (2048, 128), (1024, 256),
+                                 (256, 512), (16, 512)])
+def test_spd_solve_real_widths_on_gpu(gpu, n, d):
+    # the sweeps' solve shapes on the card against float64 numpy
+    from safer2_recommender_tpu.ops import block_chol
+
+    rng = np.random.default_rng(n + d)
+    g = rng.normal(size=(n, d, d)).astype(np.float32)
+    a = np.einsum("nij,nkj->nik", g, g) / d
+    b = rng.normal(size=(n, d)).astype(np.float32)
+    ridge = rng.uniform(0.01, 0.5, n).astype(np.float32)
+    x = np.asarray(block_chol.spd_solve(jnp.asarray(a), jnp.asarray(b),
+                                        jnp.asarray(ridge)))
+    want = np.linalg.solve(a.astype(np.float64)
+                           + ridge[:, None, None] * np.eye(d),
+                           b.astype(np.float64)[..., None])[..., 0]
+    np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
 
 
 # --------------------------------------------------------------------------
@@ -400,74 +451,32 @@ def test_refresh_eigh_warm_and_cold_paths():
 
 def test_spd_solve_ridge_param_matches_explicit(spd_solve_path):
     # the lazy diagonal shift must equal an explicit a + diag(ridge)
-    from safer2_recommender_tpu.ops import block_chol
-
     rng = np.random.default_rng(7)
     for d in (16, 128):
         a = _random_spd(rng, 9, d)
         b = jnp.asarray(rng.normal(size=(9, d)).astype(np.float32))
         ridge = jnp.asarray(rng.uniform(0.01, 0.5, 9).astype(np.float32))
-        x = np.asarray(block_chol.spd_solve(a, b, ridge))
+        x = np.asarray(spd_solve_path(a, b, ridge))
         aa = np.asarray(a) + np.asarray(ridge)[:, None, None] * np.eye(d)
         want = np.linalg.solve(aa, np.asarray(b)[..., None])[..., 0]
         np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
 
 
-def test_spd_solve_factored_default_gate(monkeypatch):
-    # TPU/interpret default: factored for batches >= _FACTORED_MIN_N,
-    # explicit below (measured crossover, see block_chol.py); env forces
-    # either way; plain CPU stays off (LAPACK dispatch wins there)
-    from safer2_recommender_tpu.ops import block_chol
-
-    monkeypatch.delenv("FRT_FACTORED_SOLVE", raising=False)
-    assert not block_chol._factored_for(1024)  # cpu backend
-    monkeypatch.setenv("FRT_PALLAS_INTERPRET", "1")
-    assert block_chol._factored_for(block_chol._FACTORED_MIN_N)
-    assert not block_chol._factored_for(block_chol._FACTORED_MIN_N - 1)
-    monkeypatch.setenv("FRT_FACTORED_SOLVE", "0")
-    assert not block_chol._factored_for(1024)
-    monkeypatch.setenv("FRT_FACTORED_SOLVE", "1")
-    assert block_chol._factored_for(1)
-
-
-def test_spd_solve_default_interpret_matches_numpy(monkeypatch):
-    # the production TPU default (factored, batch >= gate) vs numpy,
-    # exercised via interpret mode on the CPU suite. d=64 keeps the
-    # interpreted Pallas lane subtree affordable; the d>=128 block
-    # substitution recursion is covered (fast, no Pallas) by the
-    # forced-factored CPU-backend test below.
-    from safer2_recommender_tpu.ops import block_chol
-
-    monkeypatch.delenv("FRT_FACTORED_SOLVE", raising=False)
-    monkeypatch.setenv("FRT_PALLAS_INTERPRET", "1")
-    block_chol.spd_solve.clear_cache()
-    rng = np.random.default_rng(3)
-    for n, d in ((96, 64), (16, 64)):  # straddle the gate
-        a = _random_spd(rng, n, d)
-        b = jnp.asarray(rng.normal(size=(n, d)).astype(np.float32))
-        x = np.asarray(block_chol.spd_solve(a, b))
-        want = np.linalg.solve(np.asarray(a), np.asarray(b)[..., None])[..., 0]
-        np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
-    block_chol.spd_solve.clear_cache()
-
-
 @pytest.mark.parametrize("d", [16, 96, 128, 256])
-def test_spd_solve_factored_path_matches_default(d, monkeypatch):
-    # the forced factored solver (FRT_FACTORED_SOLVE=1) must agree with
-    # the CPU-default path
+def test_spd_solve_factored_path_matches_default(d):
+    # the factored path agrees with the native one (the GPU's default)
+    import functools
+
     from safer2_recommender_tpu.ops import block_chol
 
     rng = np.random.default_rng(11)
     a = _random_spd(rng, 13, d)
     b = jnp.asarray(rng.normal(size=(13, d)).astype(np.float32))
     ridge = jnp.asarray(rng.uniform(0.01, 0.3, 13).astype(np.float32))
-    base = np.asarray(block_chol.spd_solve(a, b, ridge))
-    monkeypatch.setenv("FRT_FACTORED_SOLVE", "1")
-    block_chol.spd_solve.clear_cache()
-    fact = np.asarray(block_chol.spd_solve(a, b, ridge))
-    monkeypatch.delenv("FRT_FACTORED_SOLVE")
-    block_chol.spd_solve.clear_cache()
-    np.testing.assert_allclose(fact, base, rtol=2e-3, atol=2e-4)
+    native, fact = (np.asarray(jax.jit(functools.partial(
+        block_chol.solve_path, p))(a, b, ridge))
+        for p in ("native", "factored"))
+    np.testing.assert_allclose(fact, native, rtol=2e-3, atol=2e-4)
 
 
 def test_epoch_eig_refresh_wiring_dim256():
